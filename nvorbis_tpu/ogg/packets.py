@@ -339,7 +339,13 @@ class PacketProvider:
                     if granule_pos <= end_gp:
                         return end_gp - last_page_packet_len, -1
                 else:
+                    # shift the page's first-packet start with its ends:
+                    # a target in packet 0 must roll forward from the
+                    # corrected start (the previous page's granule), not
+                    # from the uncorrected walk, or the roll overruns the
+                    # packet
                     gps = [g - diff for g in gps]
+                    end_gp -= diff
             elif page_index > self._index.first_data_page_index:
                 raise InvalidDataError(
                     f"GranulePos mismatch: Page {page_index}, expected "

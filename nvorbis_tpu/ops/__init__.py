@@ -2,7 +2,7 @@
 
 Each op is a pure function over dense tensors, usable standalone under
 ``jax.jit``/``vmap`` or composed as in ``synth/device.py``'s fused program.
-They are the TPU-native equivalents of the reference's per-frame DSP
+They are the device-plane equivalents of the reference's per-frame DSP
 routines (see each function's docstring for the NVorbis file:line mapping).
 """
 

@@ -5,7 +5,8 @@ parallelism axis is the *frame/stream batch* (data parallel over the mesh
 ``stream`` axis).  The IMDCT matmul is additionally tensor-parallel over the
 ``freq`` axis: the spectral (contraction) dimension is sharded, each chip
 multiplies its slice of the ``[n/2, n]`` cosine basis, and XLA inserts the
-``psum`` over ``freq`` — collectives ride the ICI, nothing is hand-written.
+``psum`` over ``freq`` (NCCL over the device interconnect on GPUs); nothing
+is hand-written.
 
 Unlike :class:`~nvorbis_tpu.synth.device.DeviceSynth` (which bakes one
 stream's floor/window tables in as constants), the sharded program is
@@ -40,9 +41,10 @@ def build_mesh(n_devices=None, model_parallel=None, devices=None):
     ``model_parallel`` (the ``freq`` extent) defaults to 2 when the device
     count is even, exercising the tensor-parallel IMDCT path; the remaining
     devices form the data-parallel ``stream`` axis.  ``devices`` pins an
-    explicit device list (e.g. ``jax.devices("cpu")`` for the virtual-mesh
-    dryrun in a process whose *default* backend already resolved to a
-    single remote accelerator); default is the default platform's devices.
+    explicit device list (e.g. ``jax.devices("cpu")`` for a virtual-mesh
+    dryrun); default is the default platform's devices.  The mesh follows
+    the algorithm only: on all-to-all linked cards any grouping is as good
+    as another.
     """
     if devices is None:
         devices = jax.devices()

@@ -7,11 +7,12 @@ from nvorbis_tpu.ogg.container import ContainerReader
 
 from conftest import fixture_path
 
+# page counts as libogg wrote them (tools/make_corpus.py --check)
 EXPECTED_PAGES = {
     "1test.ogg": 3,
-    "2test.ogg": 5,
-    "3test.ogg": 30,
-    "issue6test.ogg": 18,
+    "2test.ogg": 17,
+    "3test.ogg": 25,
+    "issue6test.ogg": 50,
 }
 
 
@@ -108,7 +109,7 @@ def test_granule_count():
     cont = ContainerReader(fixture_path("3test.ogg"))
     assert cont.try_init()
     provider = cont.get_streams()[0]
-    assert provider.get_granule_count() == 288094
+    assert provider.get_granule_count() == 286650
     cont.dispose()
 
 

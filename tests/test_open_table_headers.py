@@ -14,10 +14,7 @@ import numpy as np
 import pytest
 
 import nvorbis_tpu as nv
-
-
-def fixture_path(name):
-    return os.path.join("/root/reference/TestFiles", name)
+from nvorbis_tpu.testgen.corpus import fixture_path
 
 
 def _with_lane(path, enabled, fn):

@@ -72,3 +72,37 @@ def test_seek_past_end():
     with pytest.raises(Exception):
         r.seek_to(10**9)
     r.dispose()
+
+
+def test_seek_into_first_packet_of_granule_bug_page():
+    """A page whose backward packet walk misses the previous page's granule
+    by the libvorbis long/short accounting difference (-(long/4 - short/4))
+    gets its packet granules shifted; a target inside its FIRST packet must
+    roll forward from the shifted start too.  (Unshifted, the roll overran
+    the packet and the next read never returned.)"""
+    name = "issue6test.ogg"
+    full, ch = _full_decode(name)
+    r = nv.VorbisReader(fixture_path(name), engine="oracle")
+    delta = r.total_samples - len(full) // ch  # granule over-claim (63)
+    dec = r._stream_decoder
+    prov = dec._packet_provider
+    idx = prov._index
+    hits = 0
+    for page in range(idx.first_data_page_index + 1, idx.page_count):
+        prev_gp, prev_len, first = prov._previous_page_info(
+            page, dec._get_packet_granules)
+        gps, end_gp, _ = prov._target_page_info(
+            page, first, prev_len, dec._get_packet_granules)
+        if end_gp - prev_gp >= 0 or prev_gp <= 0 or first:
+            continue
+        pos = prev_gp + (gps[0] - end_gp) - 1  # last sample of packet 0
+        if pos - delta + 1000 > len(full) // ch:
+            continue
+        r.seek_to(pos)
+        got = np.zeros(1000 * ch, dtype=np.float32)
+        assert r.read_samples(got) == len(got)
+        k = pos - delta
+        np.testing.assert_array_equal(got, full[k * ch : (k + 1000) * ch])
+        hits += 1
+    r.dispose()
+    assert hits  # the fixture has such pages

@@ -15,13 +15,14 @@ import pytest
 import nvorbis_tpu as nv
 from nvorbis_tpu import native
 from nvorbis_tpu.ogg.crc import crc32
+from nvorbis_tpu.testgen.corpus import fixture_path
 from nvorbis_tpu.testgen.ogg_writer import split_pages
 
 pytestmark = pytest.mark.skipif(
     native.load() is None, reason="native library unavailable"
 )
 
-SRC = "/root/reference/TestFiles/3test.ogg"
+SRC = fixture_path("3test.ogg")
 
 
 def _decode(blob, tight):

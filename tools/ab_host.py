@@ -1,13 +1,13 @@
 """In-process alternating A/B for host-engine env knobs.
 
 The only valid comparison methodology on this host class: the same
-binary drifts 40%+ with VM weather across minutes (NOTES.md), so
+binary drifts with VM weather across minutes, so
 variants must alternate within ONE process and be judged on adjacent
 pairs + medians.  Knobs sampled at decoder construction (NVT_NO_T2CH2,
 NVT_FLOOR_DIV, NVT_FLOOR_INC, NVT_NO_SORTED_UNPACK, NVT_NO_OLA2,
 NVT_NO_OLAG, NVT_HOST_FUSED_OLA=0, ...) flip cleanly between
 constructions; rebuild-requiring changes need stash-pair children
-instead (see NOTES round 4).
+instead (tools/ab_so.py).
 
 Usage:
   python tools/ab_host.py ENV_VAR [pairs] [streams] [repeats]
@@ -51,12 +51,9 @@ if WORKLOAD == "surround":
     raw = _spec.build_stream(np.random.default_rng(1), 60 * REPEATS)
     CHANNELS, RATE = 6, 48000
 else:
-    path = f"/root/repo/.benchcache/long3_x{REPEATS}.ogg"
-    if not os.path.exists(path):
-        from nvorbis_tpu.testgen.ogg_writer import make_long_stream
+    from nvorbis_tpu.testgen.corpus import long_stream
 
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        make_long_stream("/root/reference/TestFiles/3test.ogg", REPEATS, path)
+    path = long_stream(REPEATS)
     raw = open(path, "rb").read()
     CHANNELS, RATE = 2, 44100
 raws = [raw] * N

@@ -28,16 +28,12 @@ REPEATS = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 
 import numpy as np  # noqa: E402
 
-path = f"/root/repo/.benchcache/long3_x{REPEATS}.ogg"
-if not os.path.exists(path):
-    from nvorbis_tpu.testgen.ogg_writer import make_long_stream
+from nvorbis_tpu.testgen.corpus import long_stream
 
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    make_long_stream("/root/reference/TestFiles/3test.ogg", REPEATS, path)
+path = long_stream(REPEATS)
 raw = open(path, "rb").read()
 
 # capture one dispatched symbol chunk via the BatchDecoder hook
-os.environ.setdefault("NVT_FETCH_WORKER", "0")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -6,7 +6,7 @@ re-pointing ``native._SO`` and calling ``native.reset()`` between arms
 (dlopen of distinct paths yields distinct library instances; the
 unpacker cache is cleared by reset).  Same adjacent-pair methodology as
 tools/ab_host.py — single timings on this host class measure VM
-weather, not code (NOTES.md).
+weather, not code.
 
 Usage:
   python tools/ab_so.py OLD_SO NEW_SO [pairs] [streams] [repeats]
@@ -44,12 +44,9 @@ if WORKLOAD == "surround":
     raw = spec.build_stream(np.random.default_rng(1), 60 * REPEATS)
     CHANNELS, RATE = 6, 48000
 else:
-    path = f"/root/repo/.benchcache/long3_x{REPEATS}.ogg"
-    if not os.path.exists(path):
-        from nvorbis_tpu.testgen.ogg_writer import make_long_stream
+    from nvorbis_tpu.testgen.corpus import long_stream
 
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        make_long_stream("/root/reference/TestFiles/3test.ogg", REPEATS, path)
+    path = long_stream(REPEATS)
     raw = open(path, "rb").read()
     CHANNELS, RATE = 2, 44100
 raws = [raw] * N
